@@ -1,7 +1,7 @@
 // RSC clip codec: native decoder/encoder for the framework's recorded-clip
 // format (see realsensetracker_tpu/data/recorded.py for the layout spec).
 //
-// This is the TPU framework's native data-loader, standing in for the
+// This is the framework's native data-loader, standing in for the
 // reference's librealsense capture + protobuf serde (rs_driver.cpp,
 // rs_viewer.cpp:105-112): bulk u16->f32 depth conversion happens here in
 // C++ with threads, off the Python hot path, feeding the host->device

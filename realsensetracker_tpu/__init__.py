@@ -1,19 +1,18 @@
-"""realsensetracker_tpu: a TPU-native RGB-D tracking framework.
+"""realsensetracker_tpu: an RGB-D tracking framework in JAX.
 
-A ground-up JAX/XLA/Pallas/pjit rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 yycho0108/RealsenseTracker (reference: /root/reference). The reference is a
 CPU/C++17 point-cloud registration pipeline (KD-trees + Ceres); this framework
 keeps the behavioral contract (frame in -> SE(3) pose out, same registration
 semantics and tunables) but restructures the math around dense, fixed-shape,
-mask-based tensor ops that map onto the TPU's MXU/VPU, with multi-chip scaling
-via jax.sharding.Mesh.
+mask-based tensor ops that XLA compiles for the GPU, with multi-device
+scaling via jax.sharding.Mesh.
 
-Layer map (mirrors reference rs_tracker/ modules -> TPU-native equivalents):
+Layer map (mirrors reference rs_tracker/ modules -> JAX equivalents):
   geometry/   SE(3) exp/log + pinhole camera       (ref: Eigen Isometry3f use)
   ops/        point-cloud ops: unproject, normals, voxel, correspondence,
               FPFH, matching                        (ref: rs_tracker/common)
   align/      ICP / Kabsch / GICP / robust global  (ref: rs_tracker/align)
-  kernels/    Pallas TPU kernels for the hot path
   data/       recorded-clip + TUM loaders, sources (ref: rs_tracker/driver)
   tracking/   frame-to-frame / keyframe VO, map accumulator, trajectory
   parallel/   mesh construction, batched/sharded registration

@@ -1,8 +1,8 @@
 """GNC-weighted point-to-point ICP, reference-exact semantics.
 
-TPU-native port of AlignIcp3d (align_icp.cpp:73-167). The per-iteration
-KD-tree 1-NN (align_icp.cpp:112) becomes a dense brute-force search on the
-MXU (ops/correspond.py); everything else follows the reference precisely:
+JAX port of AlignIcp3d (align_icp.cpp:73-167). The per-iteration
+KD-tree 1-NN (align_icp.cpp:112) becomes a dense brute-force search as a
+matrix product (ops/correspond.py); everything else follows the reference precisely:
 
 * src_mean is computed ONCE from the untransformed source (align_icp.cpp:85);
 * Geman-McClure/GNC weight l = (mu / (d^2 + mu))^2 with mu annealed by
@@ -15,7 +15,7 @@ MXU (ops/correspond.py); everything else follows the reference precisely:
 
 Covariance accumulates in f64 when x64 is enabled (CPU parity tests),
 matching the C++ `Eigen::Matrix3d cov` (align_icp.cpp:125); canonicalizes to
-f32 on TPU.
+f32 otherwise (the production setting).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Reproduces the exact semantics of the reference's SolveKabsch
   (align_icp.cpp:61-63), not of U;
 * t = dst_mean - R @ src_mean (align_icp.cpp:66).
 
-On TPU (no f64) the accumulation dtype canonicalizes to f32; CPU parity
+Without x64 the accumulation dtype canonicalizes to f32; CPU parity
 tests enable jax_enable_x64 to match the C++ double accumulation.
 """
 

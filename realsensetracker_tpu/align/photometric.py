@@ -76,8 +76,8 @@ def align_photometric(
     cfg: PhotometricConfig = PhotometricConfig(),
 ) -> PhotometricResult:
     """Direct image alignment of sampled source points onto dst_image."""
-    # Pin to the framework compute dtype (CLAUDE.md gotcha 5: f64 inputs
-    # under x64 would break the fori_loop carry types).
+    # Pin to the framework compute dtype (f64 inputs under x64 would
+    # break the fori_loop carry types).
     src_pts = jnp.asarray(src_pts, jnp.float32)
     src_intensity = jnp.asarray(src_intensity, jnp.float32)
     dst_image = jnp.asarray(dst_image, jnp.float32)

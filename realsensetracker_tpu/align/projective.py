@@ -1,4 +1,4 @@
-"""Projective point-to-plane ICP: the TPU production registration path.
+"""Projective point-to-plane ICP: the production registration path.
 
 This replaces the reference's tree-based inner loop (align_icp.cpp:105-121)
 per the north star: correspondence is O(1) camera projection into the
@@ -33,7 +33,7 @@ class ProjectiveIcpConfig(NamedTuple):
     # ONCE, then applies `inner_iters` Gauss-Newton updates against those
     # fixed planes (the reference's outer/inner split, align_gicp.cpp:
     # 134-159, applied to projective ICP). The gather is the hot-loop
-    # bottleneck (BENCHMARKS.md): x2 inner halves the gathers at equal
+    # bottleneck: x2 inner halves the gathers at equal
     # small-motion accuracy (twist err ~8e-5 at 640x480), and the 4th
     # pyramid level restores the basin edge the shorter 3-level schedule
     # lost (18-case 0.08-0.12 rad/m sweep: 3 failures, same as the old
@@ -57,8 +57,7 @@ def fit_levels(cfg, height: int, width: int, min_extent: int = 24):
     The default 4-level schedule assumes ~640x480 (coarsest 80x60); at
     80x60 TEST resolution the 10x7 coarsest level carries too few valid
     planes to constrain a 6-DOF solve and the whole cascade can diverge
-    (BENCHMARKS.md "small-resolution schedule pitfall", hit twice in
-    round 3). ``iters`` is coarse->fine, so dropping the unusable COARSE
+    (hit twice by tests at small resolutions). ``iters`` is coarse->fine, so dropping the unusable COARSE
     entries keeps fine-level behavior identical; at production
     resolutions this is a no-op. Works on any config NamedTuple with an
     ``iters`` tuple (ProjectiveIcpConfig, RgbdIcpConfig). Shape-static:
@@ -95,7 +94,7 @@ def sample_level(level: PyramidLevel, count: int):
     stride = npix // count
     # Static strided SLICE, not a gather: the indices are arange(count) *
     # stride, so lax.slice with a stride reads the same elements without the
-    # tile-granular per-row HBM reads an advanced-index gather costs.
+    # per-row index reads an advanced-index gather costs.
     lim = count * stride
     pts = level.vertex_map.reshape(npix, 3)[:lim:stride]
     nrm = level.normal_map.reshape(npix, 3)[:lim:stride]
@@ -108,7 +107,7 @@ def sample_level_normal_space(level: PyramidLevel, count: int, bins: int = 6):
     across surface orientations so sliding-dominant geometry (e.g. one big
     wall) cannot starve the constraint directions.
 
-    TPU formulation: bucket normals by dominant signed axis (6 bins), stable
+    Fixed-shape formulation: bucket normals by dominant signed axis (6 bins), stable
     argsort on (bin, pixel index), then take count/bins entries from each
     bin's segment via dynamic slices. Under-full bins spill into neighboring
     segments (still valid points, slightly unbalanced). Requires a pyramid
@@ -178,7 +177,7 @@ def sample_depth_points(
     stride = npix // count
     idx = jnp.arange(count) * stride
     # Static strided SLICE (indices are arange * stride): same elements as a
-    # gather but without per-row tile-granular HBM reads. `idx` is only used
+    # gather but without per-row index reads. `idx` is only used
     # for the (cheap, gather-free) pixel-coordinate arithmetic below.
     d = depth.reshape(npix)[: count * stride : stride]
     ok = jnp.isfinite(d) & (d > min_depth) & (d < max_depth)
@@ -202,7 +201,7 @@ def associate_planes_t(
     correspondence (vs 8 for vertex+normal+valid; gathers are the hot-loop
     bottleneck). Invalid pixels carry n = 0 -> Jacobian rows vanish and
     validity is |n|^2 > 0.5 for free. The point axis stays minor-most
-    throughout ((3, P)/(6, P)) -- the layout a Pallas GN kernel needs.
+    throughout ((3, P)/(6, P)).
     Measured throughput-neutral vs the (P, 3) formulation (XLA already
     picked good layouts), so this is about explicitness, not speed.
     """
@@ -253,9 +252,9 @@ def normal_equations_fixed_t(T, src_pts_t, n_t, d_plane, assoc_ok, cfg: Projecti
 
     J = jnp.concatenate([n_t, _cross_t(p, n_t)], axis=0)  # (6, P), twist [v, w]
     Jw = J * w[None, :]
-    # precision=HIGHEST: bf16 operand rounding (TPU matmul default) would
-    # bias the normal equations by ~5e-4 relative -- millimeters of pose.
-    # Contraction over P (the lane axis) feeds the MXU a full dimension.
+    # precision=HIGHEST: reduced-precision operands (bf16, or TF32 on the
+    # GPU) would bias the normal equations by ~5e-4 relative --
+    # millimeters of pose.
     H = jnp.matmul(Jw, J.T, precision=jax.lax.Precision.HIGHEST)  # (6, 6)
     b = jnp.matmul(Jw, r, precision=jax.lax.Precision.HIGHEST)  # (6,)
     aux = (

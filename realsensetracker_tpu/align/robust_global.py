@@ -1,6 +1,6 @@
 """Robust global registration: GNC-TLS rotation + component-wise translation.
 
-TPU-native replacement for the reference's TEASER++ bridge
+Dense-tensor replacement for the reference's TEASER++ bridge
 (teaser_interface.cpp:20-133). The reference configures TEASER++ with:
 GNC_TLS rotation (2048 iters, gnc_factor 1.4, cost threshold 1e-6),
 cbar2 = 1, no scale estimation, and the k-core heuristic (threshold 0.5)
@@ -8,10 +8,10 @@ instead of exact max-clique (teaser_interface.cpp:79-99). Correspondences
 come from mutual (cross-checked) FPFH matching (:66-68) and >=3 are required
 (:71-73).
 
-The TPU formulation keeps that estimation pipeline but swaps graph
+This formulation keeps that estimation pipeline but swaps graph
 algorithms for dense tensor ops:
 
-1. mutual 1-NN feature matching (two dense kNN passes, MXU);
+1. mutual 1-NN feature matching (two dense kNN passes);
 2. pairwise translation-invariant consistency graph: pairs (i, j) are
    compatible when ||p_i-p_j| - |q_i-q_j|| <= 2*noise_bound; inlier
    selection extracts the MAXIMUM k-core of this graph by true iterative
@@ -68,7 +68,7 @@ def max_kcore(adj: jnp.ndarray, keep: jnp.ndarray) -> jnp.ndarray:
     selection behind a k-core pre-screen at threshold 0.5
     (teaser_interface.cpp:92-99). A clique of size c is contained in the
     (c-1)-core, so the maximum k-core is the standard dense surrogate for
-    the max clique (TEASER's own KCORE_HEU fallback). TPU shape: binary
+    the max clique (TEASER's own KCORE_HEU fallback). Dense shape: binary
     search over k; each probe peels to a fixed point by SIMULTANEOUS
     removal of all vertices of degree < k -- every peeling round is one
     masked boolean row-reduction of the dense adjacency, no sorting, no
@@ -221,7 +221,7 @@ def symmetric_overlap(
     transform makes the overlapping surfaces coincide in BOTH directions,
     while a confidently wrong GNC fit only aligns its own inlier subset
     (measured: wrong loop registrations on sphere scenes score <= 0.34,
-    correct ones 1.0 at tau = voxel size). Two dense NN passes, MXU-bound.
+    correct ones 1.0 at tau = voxel size). Two dense NN passes.
     """
     R, t = T[:3, :3], T[:3, 3]
     tau2 = jnp.asarray(tau) ** 2

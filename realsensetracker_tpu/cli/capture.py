@@ -25,6 +25,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from realsensetracker_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from realsensetracker_tpu.geometry import camera

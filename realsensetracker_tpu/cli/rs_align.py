@@ -66,6 +66,9 @@ def _cloud_from_depth(depth, intr, capacity):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from realsensetracker_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from realsensetracker_tpu.api.config import AlignConfig

@@ -1,7 +1,7 @@
 """rs-serve: run the tracking service (POST depth frames -> SE(3) poses).
 
 Production-deployment analog of the reference's always-live process
-(rs_replay_app.cpp:159-415 runs an in-process loop; a TPU deployment runs a
+(rs_replay_app.cpp:159-415 runs an in-process loop; a deployment runs a
 service): a long-lived HTTP endpoint holding one tracker. See
 api/service.py for the protocol; the client side is
 `realsensetracker_tpu.api.service.post_frame` (one frame per request) or
@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fy", type=float, default=0.0)
     p.add_argument("--tsdf-resolution", type=int, default=0, metavar="V",
                    help="--method tsdf: volume resolution (voxels/axis, "
-                        "0 = default 128); HBM/host RAM per session scales "
+                        "0 = default 128); device/host RAM per session scales "
                         "as V^3")
     p.add_argument("--tsdf-voxel", type=float, default=0.0, metavar="M",
                    help="--method tsdf: voxel size in meters (0 = default "
@@ -106,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from realsensetracker_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     from realsensetracker_tpu.api.service import TrackingService
     from realsensetracker_tpu.geometry import camera
 

@@ -1,7 +1,7 @@
 """rs-viewer: capture/record/view frames (headless).
 
 Port of rs_viewer_app (rs_viewer_app.cpp:26-58) + the viewer loop's record
-path (rs_viewer.cpp:105-112): with no camera hardware in a TPU pod, the
+path (rs_viewer.cpp:105-112): with no camera hardware attached, the
 capture source is the synthetic raycast scene or an existing clip; frames
 can be recorded to .rsc and/or rendered to PNGs.
 
@@ -140,6 +140,9 @@ def _live_loop(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from realsensetracker_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     from realsensetracker_tpu.data import recorded
 
     if args.loop or args.serve >= 0 or args.live_latest:

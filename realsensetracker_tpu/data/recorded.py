@@ -3,7 +3,7 @@
 The reference records per-frame protobuf point clouds from the viewer
 (rs_viewer.cpp:105-112) and replays them by glob pattern
 (rs_replay_app.cpp:132-165, 219-225); the clouds carry per-point colors
-looked up from the RealSense color stream (rs_driver.cpp:33-103). The TPU
+looked up from the RealSense color stream (rs_driver.cpp:33-103). This
 framework records IMAGES instead (the pipeline is image-native); a clip is
 one binary .rsc file holding all frames, so replay is a single sequential
 read that feeds the device-resident pipeline.

@@ -1,6 +1,6 @@
 """Synthetic depth rendering: hardware-free data source.
 
-TPU-native analog of the reference's RandomSource (data_source.hpp:22-41) --
+Device-side analog of the reference's RandomSource (data_source.hpp:22-41) --
 its only camera-free backend -- but geometrically consistent: an analytic
 raycast of a sphere/plane scene, so frames rendered from two poses admit an
 exact known relative transform. Used by tests and the benchmark; real data
@@ -59,8 +59,8 @@ def _trace(intr: camera.Intrinsics, T_wc: jnp.ndarray, scene: Scene):
     )  # (H, W, 3), z = 1 so ray parameter t == z-depth
     R = se3.rotation(T_wc)
     o = se3.translation(T_wc)
-    # precision=HIGHEST: the TPU's default bf16 matmul would bend rays by
-    # ~5e-4 relative, breaking the exact-geometry guarantee tests rely on.
+    # precision=HIGHEST: reduced-precision operands (bf16, TF32) would
+    # bend rays by ~5e-4 relative, breaking the exact-geometry guarantee tests rely on.
     w = jnp.matmul(d_cam, R.T, precision=jax.lax.Precision.HIGHEST)
 
     # Spheres.

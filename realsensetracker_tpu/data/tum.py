@@ -75,7 +75,7 @@ class TumSequence:
 
         Raw frames feed trackers with depth_scale=1/DEPTH_SCALE at HALF
         the host->device upload bytes of f32 -- the upload rides the
-        timed dispatch on windowed paths (BENCHMARKS.md)."""
+        timed dispatch on windowed paths."""
         ts, rel = self.depth_index[i]
         del ts
         return load_depth_png_raw(os.path.join(self.root, rel))

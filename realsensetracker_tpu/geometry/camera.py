@@ -4,7 +4,7 @@ The reference obtains intrinsics from the RealSense color stream
 (rs_driver.cpp:264-280) and computes point clouds on the CPU via
 rs2::pointcloud::calculate (rs_driver.cpp:201-202). Here the camera model is
 an explicit jittable op: depth images become vertex maps on-device, which is
-the foundation of projective correspondence (the TPU replacement for the
+the foundation of projective correspondence (the dense replacement for the
 reference's per-point KD-tree queries, align_icp.cpp:105-121).
 """
 
@@ -80,8 +80,12 @@ def unproject_depth(depth: jnp.ndarray, intr: Intrinsics) -> jnp.ndarray:
     v = jnp.arange(h, dtype=depth.dtype)
     uu, vv = jnp.meshgrid(u, v)
     d = jnp.where(jnp.isfinite(depth) & (depth > 0), depth, 0.0)
-    x = d * (uu - intr.cx) / intr.fx
-    y = d * (vv - intr.cy) / intr.fy
+    # Multiply by the rounded reciprocal rather than divide: the same three
+    # correctly rounded float32 operations in XLA, the GPU plane-table
+    # kernel (ops/plane_kernel.py, whose division is approximate) and the
+    # NumPy oracle, so all three build the same vertices bit for bit.
+    x = d * (uu - intr.cx) * (1.0 / intr.fx)
+    y = d * (vv - intr.cy) * (1.0 / intr.fy)
     return jnp.stack([x, y, d], axis=-1)
 
 

@@ -3,8 +3,8 @@
 The reference stops at a sparse voxel point map (CloudAccumulator,
 rs_replay_app.cpp:76-129) and sketches frame-to-model tracking in a
 compiled-out branch (:274-287). This package is the dense-map completion
-of that plan, designed TPU-first: the volume is a fixed-shape (V, V, V)
-grid living in HBM, integration is one dense gather + elementwise update
+of that plan, designed for an accelerator: the volume is a fixed-shape
+(V, V, V) grid living in device memory, integration is one dense gather + elementwise update
 over all voxels, and raycasting is a fixed-trip-count lax.fori_loop of
 (H, W) gathers -- no trees, no sparse hashing, no dynamic shapes.
 """

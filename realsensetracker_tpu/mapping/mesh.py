@@ -6,7 +6,7 @@ ExtractPointCloud, rs_replay_app.cpp:113-122); this module emits it as a
 watertight-where-observed TRIANGLE mesh for real downstream consumption
 (rendering, collision, CAD).
 
-Marching TETRAHEDRA rather than marching cubes, for two TPU-first
+Marching TETRAHEDRA rather than marching cubes, for two fixed-shape
 reasons:
 
 * **No transcribed case tables.** Each cube splits into the 6 Kuhn

@@ -14,7 +14,7 @@ every frame. Both scale by SHARDING THE GRID, not by replicating it:
 * ``raycast`` samples the volume at arbitrary ray positions, so under
   SPMD XLA inserts ONE all-gather of the (tsdf, weight) planes per
   render; the march itself then runs replicated. That is the right
-  trade at tracking sizes (128^3 = 16 MB over ICI, microseconds)
+  trade at tracking sizes (128^3 = 16 MB per gather)
   and the honest cost of a global gather -- a halo-exchange marcher
   would only pay off far beyond current volume sizes.
 

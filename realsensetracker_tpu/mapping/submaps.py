@@ -10,7 +10,7 @@ fixed-shape volumes -- the dense analog of the reference's unbounded
 CloudAccumulator world map (rs_replay_app.cpp:76-129), in the
 Kintinuous/submap-SLAM lineage.
 
-TPU shape: every submap shares ONE TsdfConfig, so the whole lifetime of
+Fixed shapes: every submap shares ONE TsdfConfig, so the whole lifetime of
 the atlas reuses exactly the compiled programs of a single TsdfTracker
 (raycast -> register -> integrate per frame, plus one seed dispatch per
 spawn). No dynamic shapes anywhere; the host only does the spawn policy
@@ -46,7 +46,8 @@ class SubmapConfig:
     min_frames: int = 4  # frames a submap must absorb before the next
     # spawn (guards against thrashing on a fast pan)
     offload_finished: bool = True  # move frozen volumes to host RAM
-    # (HBM holds only the active one); extraction re-uploads on demand
+    # (device memory holds only the active one); extraction re-uploads
+    # on demand
     reactivate: bool = True  # on drift, first try to RE-ENTER an existing
     # submap covering the current pose (registration-gated against its
     # render) before spawning a new one: bounds memory under revisits /
@@ -59,9 +60,9 @@ class SubmapConfig:
     # default it to 3V/4 for submap volumes: submaps observe BOUNDED
     # local scenes (the spawn radius hands over before the view leaves
     # the volume), exactly the regime where frustum-restricted
-    # integration engages -- measured 102.8 -> 90.2 ms/frame on the
-    # 500-frame corridor with BIT-identical ATE (BENCHMARKS round-5
-    # submap isolation). Safe by construction: frames whose AABB does
+    # integration engages, with the same fused volume (tests/
+    # test_tsdf_integrate_slab.py; on the GPU, tests/test_gpu.py). Its
+    # speed on the GPU is not measured. Safe by construction: frames whose AABB does
     # not fit fall back to the identical full pass inside the same
     # program.
 
@@ -611,7 +612,7 @@ def _occupancy_signature(vol, cfg: tsdf_mod.TsdfConfig,
     submap scale (revisit cosine 0.986 vs 0.988 max over unrelated
     anchor-near pairs -- curvature statistics look alike everywhere on
     sphere/plane worlds), while warped-occupancy overlap separates
-    cleanly (0.96 revisit / <= 0.08 unrelated; BENCHMARKS.md)."""
+    cleanly (0.96 revisit / <= 0.08 unrelated)."""
     w = np.asarray(vol.weight) > 0
     t = np.abs(np.asarray(vol.tsdf)) < 0.5
     v = w.shape[0]

@@ -1,6 +1,6 @@
 """Truncated signed distance function (TSDF) volume on a dense grid.
 
-KinectFusion-style dense fusion as the TPU-native completion of the
+KinectFusion-style dense fusion as the device-side completion of the
 reference's mapping plan: the reference fuses a sparse first-point-wins
 voxel point map (rs_replay_app.cpp:76-129) and leaves frame-to-model
 tracking in a compiled-out branch (:274-287). A TSDF volume is the
@@ -10,7 +10,7 @@ volume renders a SYNTHETIC low-noise depth frame to track against
 (tracking/tsdf_tracker.py), which drifts less than either frame-to-frame
 or point-map frame-to-model.
 
-TPU shape of the three operations:
+Shape of the three operations:
 
 * ``integrate`` -- all V^3 voxel centers project into the depth frame at
   once. The camera coordinates of an axis-aligned grid are AFFINE in the
@@ -18,7 +18,7 @@ TPU shape of the three operations:
   (zero-FLOP rank-3 broadcast add, no (V^3, 3) matmul or coordinate
   tensor needed); the only real cost is ONE (V, V, V) advanced-index
   gather of the depth map plus elementwise updates -- exactly one pass
-  over HBM at ~16 bytes/voxel.
+  over device memory at ~16 bytes/voxel.
 * ``raycast`` -- a fixed-trip-count ``lax.fori_loop`` marching all H*W
   rays in lockstep, one nearest-neighbor (H, W) volume gather per step;
   the zero crossing is refined by linear interpolation between the two
@@ -82,7 +82,7 @@ class TsdfConfig(NamedTuple):
     # (power of two). Read by tracking/tsdf_tracker.py's step math, not
     # by the mapping ops: with track_scale=s the model renders and the
     # ICP runs at (H/s, W/s) -- the raycast's gather bill (the tracked
-    # step's dominant cost, BENCHMARKS.md "Raycast phase split") drops
+    # step's dominant cost) drops
     # ~s^2-fold -- while integration still fuses the FULL-resolution
     # frame, so map quality is unchanged. The live frame downsamples
     # with the same validity-aware 2x2 pooling the ICP pyramid uses.
@@ -121,8 +121,8 @@ class TsdfConfig(NamedTuple):
     # hit AFTER the march: the march samples the TSDF nearest-neighbor,
     # so its interpolated crossing carries voxel-scale staircase error
     # that warps the rendered surface -- the dominant geometric-term bias
-    # in photometric frame-to-model tracking (BENCHMARKS.md round-3 wall
-    # slide: 31 mm vs 0.6 mm frame-to-frame). Each iteration re-brackets
+    # in photometric frame-to-model tracking (a synthetic wall slide:
+    # 31 mm vs 0.6 mm frame-to-frame). Each iteration re-brackets
     # the hit with two observation-gated TRILINEAR samples (+-0.6 voxel
     # along the ray) and re-interpolates the zero crossing of the
     # continuous field. 0 restores the raw march hit. 1 is the default:
@@ -552,7 +552,7 @@ def _refine_subvoxel(field, t, dirs, z_hit, found, cfg: TsdfConfig):
     the ray and moves the hit to the linear zero crossing of that
     bracket, clamped to the bracket; where either sample is invalid or
     the bracket is degenerate the hit is left as the march found it.
-    Kills the nearest-neighbor staircase bias (VERDICT r3 #4)."""
+    Kills the nearest-neighbor staircase bias."""
     if cfg.subvoxel_iters <= 0:
         return z_hit
     dir_x, dir_y, dir_z = dirs

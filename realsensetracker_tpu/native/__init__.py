@@ -1,6 +1,6 @@
 """Native (C++) host components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; the host runtime around it -- clip
+The compute path is JAX/XLA; the host runtime around it -- clip
 codec, PNG depth decoding, unbounded voxel-hash world model -- is C++
 (native/src/*.cpp), mirroring where the reference is native (librealsense
 capture, protobuf serde, hash-map accumulator). Python fallbacks exist for

@@ -3,7 +3,7 @@
 The reference's cloud container is cho::core::PointCloud<float,3> with
 dynamic point counts (types.hpp:14-17), and NaN points are physically removed
 (RemoveNans, point_cloud_utils.cpp:163-174). Dynamic shapes defeat XLA
-compilation caching, so the TPU-native container is a fixed-capacity
+compilation caching, so the device-side container is a fixed-capacity
 (N, 3) array plus a boolean validity mask; "removal" is mask clearing and all
 reductions are mask-weighted. This mirrors how SolveKabsch already supports
 per-point weights (align_icp.cpp:38-56).
@@ -38,7 +38,7 @@ def from_points(points: jnp.ndarray, mask: jnp.ndarray | None = None) -> Cloud:
 
 
 def mask_nonfinite(cloud: Cloud) -> Cloud:
-    """TPU-native RemoveNans (ref point_cloud_utils.cpp:163-174).
+    """Fixed-shape RemoveNans (ref point_cloud_utils.cpp:163-174).
 
     Instead of compacting the array (dynamic shape), clears the validity mask
     for any point with a non-finite coordinate and zeroes the data so later

@@ -1,12 +1,13 @@
-"""Correspondence search: brute-force (MXU) and projective association.
+"""Correspondence search: brute-force (dense matmul) and projective association.
 
 The reference finds correspondences with per-point nanoflann KD-tree queries
 (FindCorrespondences, point_cloud_utils.cpp:70-90; the ICP hot loop,
-align_icp.cpp:105-121). Pointer-chasing trees are hostile to TPUs; instead:
+align_icp.cpp:105-121). Pointer-chasing trees are hostile to accelerators;
+instead:
 
 1. `nearest_neighbors` / `knn`: dense brute-force search. The pairwise
    squared-distance matrix is computed as |a|^2 + |b|^2 - 2 a.b^T -- one big
-   matmul that rides the MXU. Exact 1-NN semantics (parity path with the
+   matmul. Exact 1-NN semantics (parity path with the
    reference's trees). Chunked over the query axis to bound memory.
 2. `projective_lookup` (in align/projective.py): O(1) per-point association
    via camera projection into the destination vertex map -- the production
@@ -28,9 +29,9 @@ _BIG = 1e30
 def pairwise_sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Squared distances (..., N, M) between a (..., N, D) and b (..., M, D).
 
-    The cross term is a matmul (MXU). precision=HIGHEST is load-bearing for
-    the EXACT-1-NN contract: the TPU default rounds operands to bf16
-    (~4e-3 relative, CLAUDE.md gotcha 4), which can flip argmin to a
+    The cross term is a matmul. precision=HIGHEST is load-bearing for
+    the EXACT-1-NN contract: default precision may round operands to bf16
+    or TF32 (~4e-3 / ~5e-4 relative), which can flip argmin to a
     neighbor tens of centimeters off at meter-scale coordinates --
     preferred_element_type alone only fixes the accumulator, not the
     operand rounding.
@@ -81,7 +82,7 @@ def knn(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Exact k-NN: returns (indices (N, k), squared_distances (N, k)).
 
-    TPU equivalent of nanoflann knnSearch with k results (kdtree.hpp:51-57),
+    Dense equivalent of nanoflann knnSearch with k results (kdtree.hpp:51-57),
     implemented as chunked dense distances + top-k (negated for smallest).
     """
     n = src_points.shape[0]

@@ -1,4 +1,4 @@
-"""FPFH (Fast Point Feature Histograms), dense masked TPU formulation.
+"""FPFH (Fast Point Feature Histograms), dense masked formulation.
 
 Reference: fpfh.cpp. The C++ computes, per point, a radius neighborhood
 (nanoflann radiusSearch), the Darboux-frame pair features (ComputePfh,
@@ -7,7 +7,7 @@ fpfh.cpp:21-67), a 3x11-bin SPFH histogram (ComputeSpfh, :69-112), then the
 (ComputeFpfhImpl, :114-176). Feature matching is 33-D KD-tree kNN
 (ComputeMatch/ComputeMatches, :263-303).
 
-TPU rebuild: neighborhoods become a fixed-K kNN (dense MXU distances)
+Dense rebuild: neighborhoods become a fixed-K kNN (dense distances)
 intersected with the radius ball; pair features evaluate for all (i, k)
 lanes at once; histograms scatter via one-hot matmuls; matching reuses the
 dense kNN. Exact reference semantics preserved:
@@ -184,7 +184,7 @@ def compute_fpfh(
 def ball_counts(cloud: Cloud, radius: float, chunk: int = 1024) -> jnp.ndarray:
     """Per-point occupancy of the radius ball (valid neighbors, self incl.).
 
-    The C++ uses a true radiusSearch (fpfh.cpp:133-147) while the TPU
+    The C++ uses a true radiusSearch (fpfh.cpp:133-147) while the dense
     formulation caps the neighborhood at a static kNN size
     (compute_spfh); this measures the true ball so callers can size the
     cap instead of silently truncating. Chunked dense distances: O(N^2)

@@ -1,4 +1,4 @@
-"""Surface normal estimation: kNN/PCA (parity) and image-grid (fast path).
+"""Surface normal estimation on unorganized clouds: kNN/PCA (parity).
 
 Reference: ComputeNormals (point_cloud_utils.cpp:176-204) does a per-point
 kNN -> neighborhood covariance -> SelfAdjointEigenSolver, taking the
@@ -7,10 +7,10 @@ normals to face the viewpoint. Here:
 
 * `knn_pca_normals` reproduces those semantics exactly with batched dense
   kNN + batched 3x3 eigendecomposition (vmap over points).
-* `grid_normals` is the TPU production path: on an organized vertex map the
-  tangent basis comes from central differences, so the normal is a cross
-  product -- no neighbor search at all. This is what feeds projective
-  point-to-plane ICP.
+
+Organized depth images take the image-grid path instead
+(ops/pyramid.plane_table): central differences, a cross product, no
+neighbor search -- what feeds projective point-to-plane ICP.
 """
 
 from __future__ import annotations
@@ -59,47 +59,3 @@ def orient_normals(
     ray = points - viewpoint
     flip = jnp.sum(ray * normals, axis=-1) > 0
     return jnp.where(flip[..., None], -normals, normals)
-
-
-def grid_normals(vertex_map: jnp.ndarray, valid: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Normals of an organized vertex map (..., H, W, 3) via central differences.
-
-    Returns (normals, normal_valid). Normals are oriented toward the camera
-    (origin), matching the reference's camera-facing convention. Pure
-    elementwise/shift ops -> VPU-friendly, fuses with unprojection.
-    """
-    right = jnp.roll(vertex_map, -1, axis=-2)
-    left = jnp.roll(vertex_map, 1, axis=-2)
-    down = jnp.roll(vertex_map, -1, axis=-3)
-    up = jnp.roll(vertex_map, 1, axis=-3)
-    v_r = jnp.roll(valid, -1, axis=-1)
-    v_l = jnp.roll(valid, 1, axis=-1)
-    v_d = jnp.roll(valid, -1, axis=-2)
-    v_u = jnp.roll(valid, 1, axis=-2)
-
-    du = right - left
-    dv = down - up
-    n = jnp.cross(du, dv)
-    norm = jnp.linalg.norm(n, axis=-1, keepdims=True)
-    ok = (
-        valid
-        & v_r
-        & v_l
-        & v_d
-        & v_u
-        & (norm[..., 0] > 1e-12)
-    )
-    # Border pixels wrap with roll; mark them invalid.
-    h, w = vertex_map.shape[-3], vertex_map.shape[-2]
-    row = jnp.arange(h)
-    col = jnp.arange(w)
-    interior = (
-        (row[:, None] > 0) & (row[:, None] < h - 1) & (col[None, :] > 0) & (col[None, :] < w - 1)
-    )
-    ok = ok & interior
-    n = n / jnp.maximum(norm, 1e-12)
-    # Orient toward camera at origin: want n . p < 0.
-    flip = jnp.sum(n * vertex_map, axis=-1) > 0
-    n = jnp.where(flip[..., None], -n, n)
-    n = jnp.where(ok[..., None], n, 0.0)
-    return n, ok

@@ -1,20 +1,22 @@
 """Depth/vertex pyramids for coarse-to-fine projective ICP.
 
 The reference controls problem size with voxel downsampling
-(rs_replay_app.cpp:246-247); the TPU-native hot path instead keeps frames on
-the image grid and builds a pyramid by validity-aware 2x2 pooling. Pure
-reshapes/reductions -> fuses into one XLA program with unprojection and
-normal estimation.
+(rs_replay_app.cpp:246-247); the device hot path instead keeps frames on
+the image grid and builds a pyramid by validity-aware 2x2 pooling. Pooling
+and unprojection are plain XLA; each level's plane table is a Pallas
+kernel on the GPU (ops/plane_kernel.py) and the same math in XLA
+elsewhere.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from realsensetracker_tpu.geometry import camera
-from realsensetracker_tpu.ops import normals as normals_mod
+from realsensetracker_tpu.ops import plane_kernel
 
 
 class PyramidLevel(NamedTuple):
@@ -27,8 +29,7 @@ class PyramidLevel(NamedTuple):
     # plane, so the hot-loop gather fetches 4 floats per correspondence
     # (residual r = n . p - d); invalid pixels carry n = 0 so their Jacobian
     # rows vanish and validity is |n|^2 > 0.5, costing nothing. Planar
-    # layout keeps the last two dims (H, W) -- the shape the TPU tiles
-    # natively and the Pallas builder kernel emits.
+    # layout keeps each plane contiguous over (H, W).
 
 
 def downsample_depth(depth: jnp.ndarray, valid: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -62,12 +63,61 @@ def level_intrinsics(
     return tuple(out)
 
 
-def _use_pallas_kernel(use_kernel: str | bool) -> bool:
-    if use_kernel == "auto":
-        import jax
+def _shifted(a, di: int, dj: int, fill):
+    """a[..., i + di, j + dj] over the last two axes, `fill` outside."""
+    h, w = a.shape[-2], a.shape[-1]
+    pad = [(0, 0)] * (a.ndim - 2) + [(1, 1), (1, 1)]
+    ap = jnp.pad(a, pad, constant_values=fill)
+    return ap[..., 1 + di:1 + di + h, 1 + dj:1 + dj + w]
 
-        return jax.default_backend() not in ("cpu",)
-    return bool(use_kernel)
+
+def _plane_table_xla(d: jnp.ndarray, intr: camera.Intrinsics) -> jnp.ndarray:
+    """Plane table of one level from its depth (H, W), 0 where invalid:
+    (4, H, W) = [nx, ny, nz, n . v]. Normals are central-difference cross
+    products oriented toward the camera; border pixels and pixels with an
+    invalid (zero) 4-neighbour carry n = 0.
+
+    Computed on (H, W) planes -- the vertex planes and their four shifted
+    copies -- so XLA fuses it into a few loop fusions. The reference for
+    ops/plane_kernel, and the path on every backend but the GPU.
+    """
+    h, w = d.shape[-2], d.shape[-1]
+    u = jnp.arange(w, dtype=d.dtype)
+    v = jnp.arange(h, dtype=d.dtype)[:, None]
+    x = d * (u - intr.cx) * (1.0 / intr.fx)  # as camera.unproject_depth
+    y = d * (v - intr.cy) * (1.0 / intr.fy)
+    z = d
+    valid = d > 0
+
+    def diff(a, di, dj):  # a[+di, +dj] - a[-di, -dj]
+        return _shifted(a, di, dj, 0.0) - _shifted(a, -di, -dj, 0.0)
+
+    dux, duy, duz = diff(x, 0, 1), diff(y, 0, 1), diff(z, 0, 1)
+    dvx, dvy, dvz = diff(x, 1, 0), diff(y, 1, 0), diff(z, 1, 0)
+    nx = duy * dvz - duz * dvy
+    ny = duz * dvx - dux * dvz
+    nz = dux * dvy - duy * dvx
+    norm = jnp.sqrt(nx * nx + ny * ny + nz * nz)
+    ok = (valid & _shifted(valid, 0, 1, False) & _shifted(valid, 0, -1, False)
+          & _shifted(valid, 1, 0, False) & _shifted(valid, -1, 0, False)
+          & (norm > 1e-12))
+    inv = 1.0 / jnp.maximum(norm, 1e-12)
+    # Orient toward the camera at the origin (n . p < 0); zero if invalid.
+    s = jnp.where(nx * x + ny * y + nz * z > 0, -inv, inv)
+    s = jnp.where(ok, s, 0.0)
+    nx, ny, nz = nx * s, ny * s, nz * s
+    return jnp.stack([nx, ny, nz, nx * x + ny * y + nz * z], axis=0)
+
+
+def plane_table(d: jnp.ndarray, intr: camera.Intrinsics) -> jnp.ndarray:
+    """One level's plane table (4, H, W) from its depth (H, W), 0 where
+    invalid (batch with jax.vmap): the Pallas kernel when lowered for a
+    GPU, the XLA composition everywhere else. The choice is made per
+    lowering platform, so a CPU computation in a GPU process still takes
+    the XLA path."""
+    return jax.lax.platform_dependent(
+        d, cuda=lambda x: plane_kernel.plane_table(x, intr),
+        default=lambda x: _plane_table_xla(x, intr))
 
 
 def depth_to_meters(depth, scale=1.0):
@@ -75,11 +125,9 @@ def depth_to_meters(depth, scale=1.0):
     ON DEVICE.
 
     Integer frames (the native RealSense Z16 / TUM 16-bit PNG format)
-    upload as uint16 -- HALF the host->device bytes of f32; windowed and
-    multi-stream paths pay that upload inside the timed dispatch
-    (BENCHMARKS.md "windowed paradox") -- and scale inside the compiled
-    program, where XLA fuses the convert into the first pyramid level
-    for free. Float frames are already meters; 0 stays 0 (invalid)."""
+    upload as uint16 -- HALF the host->device bytes of f32 -- and scale
+    inside the compiled program, where XLA fuses the convert into the
+    first pyramid level. Float frames are already meters; 0 stays 0 (invalid)."""
     if jnp.issubdtype(depth.dtype, jnp.integer):
         return depth.astype(jnp.float32) * jnp.float32(scale)
     return depth.astype(jnp.float32)
@@ -92,7 +140,6 @@ def build_pyramid(
     min_depth: float = 0.05,
     max_depth: float = 10.0,
     with_normals: bool = True,
-    use_kernel: str | bool = "auto",
 ) -> tuple[list[PyramidLevel], list[camera.Intrinsics]]:
     """Depth image -> list of (vertex, normal, valid, packed) levels, fine to
     coarse.
@@ -102,35 +149,25 @@ def build_pyramid(
     skip normal estimation and table packing entirely (the placeholder
     zeros are dead-code-eliminated by XLA when unused).
 
-    use_kernel: 'auto' runs the fused Pallas level builder
-    (kernels/level_kernel.py) on TPU and the XLA composition on CPU; pass
-    True/False to force either. Both paths are parity-tested.
+    The plane table (see plane_table) is parity-tested against the NumPy
+    oracle (tests/reference_impl.build_pyramid_np).
     """
     levels: list[PyramidLevel] = []
     intrs: list[camera.Intrinsics] = []
     depth = depth.astype(jnp.float32)  # framework-wide compute dtype
     valid = camera.valid_mask(depth, min_depth, max_depth)
+    # Invalid pixels carry depth 0, so valid == (d > 0) at every level (the
+    # pooled depth is a mean of positive children): the plane table needs
+    # only d.
     d = jnp.where(valid, depth, 0.0)
     cur_intr = intr
-    pallas_ok = with_normals and _use_pallas_kernel(use_kernel)
     for _ in range(num_levels):
-        if pallas_ok:
-            from realsensetracker_tpu.kernels.level_kernel import build_level_packed
-
-            packed = build_level_packed(d, cur_intr)
-            vmap = camera.unproject_depth(d, cur_intr)
+        vmap = camera.unproject_depth(d, cur_intr)
+        if with_normals:
+            packed = plane_table(d, cur_intr)
             nmap = jnp.moveaxis(packed[0:3], 0, -1)
             lvl_valid = jnp.sum(packed[0:3] ** 2, axis=0) > 0.5
-        elif with_normals:
-            vmap = camera.unproject_depth(d, cur_intr)
-            nmap, n_ok = normals_mod.grid_normals(vmap, valid)
-            lvl_valid = valid & n_ok
-            d_plane = jnp.sum(vmap * nmap, axis=-1)  # n . q (0 where invalid)
-            packed = jnp.concatenate(
-                [jnp.moveaxis(nmap, -1, 0), d_plane[None]], axis=0
-            )
         else:
-            vmap = camera.unproject_depth(d, cur_intr)
             nmap = jnp.zeros_like(vmap)
             lvl_valid = valid
             packed = jnp.zeros((4,) + vmap.shape[:-1], vmap.dtype)

@@ -2,7 +2,7 @@
 
 The reference carries libmv-derived bilinear sampling with hand-chained
 ceres::Jet derivatives (sample.hpp:31-117, jet_extras.hpp:42-99 -- dead
-code, included by nothing). On TPU the same capability is one jnp function:
+code, included by nothing). Here the same capability is one jnp function:
 jax autodiff differentiates through the bilinear weights for free, which is
 what makes the photometric term (align/photometric.py) work without any
 custom jet machinery.

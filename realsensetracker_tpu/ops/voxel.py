@@ -1,9 +1,9 @@
-"""Voxel-grid operations: downsampling and key quantization, TPU-native.
+"""Voxel-grid operations: downsampling and key quantization, fixed-shape.
 
 The reference's DownsampleVoxel (point_cloud_utils.cpp:34-68) uses a CPU hash
 map with first-point-wins insertion; its CloudAccumulator world model
 (rs_replay_app.cpp:76-129) does the same with truncation instead of floor
-(rs_replay_app.cpp:109-111). Hash maps are not a TPU structure; the
+(rs_replay_app.cpp:109-111). Hash maps have no fixed shape; the
 equivalent here is quantize -> pack key -> stable sort -> segment-head mask,
 which preserves the semantics exactly:
 

@@ -1,8 +1,8 @@
 """Device-mesh construction for multi-chip scaling.
 
 The reference is a single-process, single-machine pipeline whose only
-concurrency is one capture thread (rs_driver.cpp:136-225). The TPU framework
-scales over ICI with a jax.sharding.Mesh of two logical axes:
+concurrency is one capture thread (rs_driver.cpp:136-225). This framework
+scales across devices with a jax.sharding.Mesh of two logical axes:
 
 * ``data``: independent frame pairs / streams (registrations are
   embarrassingly parallel -- SURVEY.md section 5.8);

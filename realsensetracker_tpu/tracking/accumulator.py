@@ -1,6 +1,6 @@
 """Voxel-hash world model, fixed capacity, device resident.
 
-TPU-native CloudAccumulator (rs_replay_app.cpp:76-129): the reference keeps
+Device-resident CloudAccumulator (rs_replay_app.cpp:76-129): the reference keeps
 an unordered_map voxel->point where the FIRST point to claim a voxel wins
 (AddCloud, :95-107) and voxel indices use C truncation (GetVoxelIndex,
 :109-111). Here the map is a fixed-capacity array + packed int32 voxel keys;

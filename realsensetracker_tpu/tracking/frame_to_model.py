@@ -6,11 +6,11 @@ against CloudAccumulator::ExtractPointCloud(), then insert. Frame-to-model
 drifts less than frame-to-frame because the reference surface is the fused
 map, not the previous noisy frame.
 
-TPU realization: the device-resident MapAccumulator IS a fixed-capacity
-masked cloud, so GNC-ICP runs against it directly (MXU brute-force NN) and
+Device realization: the device-resident MapAccumulator IS a fixed-capacity
+masked cloud, so GNC-ICP runs against it directly (brute-force NN) and
 the whole frame -- unproject, voxel downsample, ICP, SE(3)-projected pose,
 conditional model insert -- is ONE jitted program per frame (see
-tracking/keyframe.py for the relay dispatch-cost model motivating fusion).
+tracking/keyframe.py for why each frame is one program).
 """
 
 from __future__ import annotations

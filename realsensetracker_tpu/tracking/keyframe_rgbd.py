@@ -6,7 +6,7 @@ objective (align/rgbd.py), promoting the current frame to keyframe on
 motion/overlap thresholds, with the reference's failure-holds-pose
 semantics (rs_replay_app.cpp:266-273). This is the VO the SLAM layer uses
 when a color stream exists: on geometry-degenerate stretches (flat walls,
-the seed-11 sliding ambiguity recorded in BENCHMARKS.md) the photometric
+the seed-11 synthetic scene's sliding ambiguity) the photometric
 term pins the in-plane motion that point-to-plane leaves unobservable.
 
 Same single-dispatch streaming shape as the depth tracker: one jitted

@@ -27,7 +27,7 @@ from realsensetracker_tpu.tracking.trajectory import Trajectory
 @partial(jax.jit, static_argnames=("intr", "cfg"))
 def _fused_rgbd_step(depth, gray, prev_levels, prev_grays, pose, *, intr, cfg):
     """One RGB-D tracked frame as a single XLA program (see
-    tracking/keyframe.py for the relay cost model motivating fusion).
+    tracking/keyframe.py for why each frame is one program).
 
     Returns (target_levels, target_grays, new_pose_device, relative,
     stats (19,)) with stats = [rmse, inlier_fraction, finite_ok,

@@ -2,7 +2,7 @@
 
 The reference scatters manual NaN checks through the pipeline
 ("NANI!?", align_gicp.cpp:146-154; NaN->0 in conversion, rs_driver.cpp:84-88;
-RemoveNans). The TPU framework handles NaNs structurally (masking +
+RemoveNans). This framework handles NaNs structurally (masking +
 finite-guards in solvers); these helpers add the debugging equivalents:
 a context that turns on jax's global NaN checking, and an assert-finite
 helper usable inside jit.

@@ -3,7 +3,7 @@
 The reference's viewer polls the driver for frames, renders each fresh one
 into an interactive SubprocessViewer window, sleeps interval/8 when the
 frame is stale, and optionally records every rendered frame
-(rs_viewer.cpp:82-112). A TPU pod is headless, so the "window" here is an
+(rs_viewer.cpp:82-112). A GPU server is headless, so the "window" here is an
 HTTP service: `LiveServer` holds the latest rendered PNG and serves
 
   GET /           self-refreshing HTML page (the live view)

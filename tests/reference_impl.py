@@ -151,8 +151,11 @@ def compute_pfh_np(p1, n1, p2, n2):
     return f, True
 
 
-def compute_fpfh_np(points, normals, radius):
-    """ComputeSpfh + ComputeFpfhImpl (fpfh.cpp:69-176), radius neighborhoods."""
+def compute_fpfh_np(points, normals, radius, pair_features=None):
+    """ComputeSpfh + ComputeFpfhImpl (fpfh.cpp:69-176), radius neighborhoods.
+
+    pair_features(i, j) -> (f, success) replaces compute_pfh_np on the
+    pair (i, j) when given."""
     points = np.asarray(points, np.float32)
     n = len(points)
     num_bins, size = 11, 33
@@ -169,7 +172,11 @@ def compute_fpfh_np(points, normals, radius):
         for j in nb:
             if j == i:
                 continue
-            f, suc = compute_pfh_np(points[i], normals[i], points[j], normals[j])
+            if pair_features is None:
+                f, suc = compute_pfh_np(points[i], normals[i], points[j],
+                                        normals[j])
+            else:
+                f, suc = pair_features(i, j)
             if suc:
                 for k in range(3):
                     h = int(np.floor(num_bins * (f[k] * scale[k] + 0.5)))
@@ -331,3 +338,73 @@ def prune_matches_lowe_np(matches, src_fpfh, dst_fpfh, lowe_ratio):
                 pairs.append((i, j1))
                 weights.append(np.exp(-d1 / k_var))
     return pairs, weights
+
+
+
+def unproject_np(depth, fx, fy, cx, cy):
+    """Depth (H, W) f32 meters -> camera-frame vertex map (H, W, 3)."""
+    depth = np.asarray(depth, np.float32)
+    h, w = depth.shape
+    u = np.arange(w, dtype=np.float32)[None, :]
+    v = np.arange(h, dtype=np.float32)[:, None]
+    x = depth * (u - np.float32(cx)) * np.float32(1.0 / fx)
+    y = depth * (v - np.float32(cy)) * np.float32(1.0 / fy)
+    return np.stack([x, y, depth], axis=-1)
+
+
+def plane_table_np(vmap, valid):
+    """Plane table of one level: vertex map (H, W, 3) and vertex validity
+    (H, W) -> (packed (4, H, W) = [nx, ny, nz, n . v], normal_ok (H, W)).
+    Central-difference normals over interior pixels (slices, no
+    wrap-around), oriented toward the camera; border pixels and pixels with
+    an invalid 4-neighbour carry n = 0."""
+    vmap = np.asarray(vmap, np.float32)
+    h, w = valid.shape
+    c = (slice(1, h - 1), slice(1, w - 1))
+    du = vmap[1:-1, 2:] - vmap[1:-1, :-2]
+    dv = vmap[2:, 1:-1] - vmap[:-2, 1:-1]
+    n = np.cross(du, dv).astype(np.float32)
+    norm = np.sqrt(np.sum(n * n, axis=-1, keepdims=True))
+    ok = (valid[c] & valid[1:-1, 2:] & valid[1:-1, :-2] & valid[2:, 1:-1]
+          & valid[:-2, 1:-1] & (norm[..., 0] > 1e-12))
+    n = n / np.maximum(norm, np.float32(1e-12))
+    flip = np.sum(n * vmap[c], axis=-1) > 0
+    n = np.where(flip[..., None], -n, n)
+    normals = np.zeros((h, w, 3), np.float32)
+    normals[c] = np.where(ok[..., None], n, np.float32(0.0))
+    normal_ok = np.zeros((h, w), bool)
+    normal_ok[c] = ok
+    d_plane = np.sum(vmap * normals, axis=-1)
+    packed = np.concatenate([np.moveaxis(normals, -1, 0), d_plane[None]], 0)
+    return packed.astype(np.float32), normal_ok
+
+
+def build_pyramid_np(depth, fx, fy, cx, cy, num_levels=3, min_depth=0.05,
+                     max_depth=10.0):
+    """NumPy oracle for ops.pyramid.build_pyramid's levels.
+
+    Returns one dict per level, fine to coarse, with keys vertex_map,
+    packed, valid (vertex AND normal valid) and vertex_valid. Coarser
+    levels are 2x2 means over the valid children (a coarse pixel is valid
+    if any child is), with a trailing odd row/column dropped and the
+    intrinsics halved as (c + 0.5) / 2 - 0.5."""
+    d = np.asarray(depth, np.float32)
+    valid = np.isfinite(d) & (d > min_depth) & (d < max_depth)
+    d = np.where(valid, d, np.float32(0.0)).astype(np.float32)
+    levels = []
+    for _ in range(num_levels):
+        vmap = unproject_np(d, fx, fy, cx, cy)
+        packed, normal_ok = plane_table_np(vmap, valid)
+        levels.append({"vertex_map": vmap, "packed": packed,
+                       "valid": normal_ok & valid, "vertex_valid": valid})
+        h2, w2 = d.shape[0] // 2, d.shape[1] // 2
+        blocks = d[:2 * h2, :2 * w2].reshape(h2, 2, w2, 2)
+        mask = valid[:2 * h2, :2 * w2].reshape(h2, 2, w2, 2)
+        cnt = mask.sum(axis=(1, 3))
+        total = np.where(mask, blocks, np.float32(0.0)).sum(axis=(1, 3))
+        valid = cnt > 0
+        d = np.where(valid, total / np.maximum(cnt, 1).astype(np.float32),
+                     np.float32(0.0)).astype(np.float32)
+        fx, fy = fx * 0.5, fy * 0.5
+        cx, cy = (cx + 0.5) * 0.5 - 0.5, (cy + 0.5) * 0.5 - 0.5
+    return levels

@@ -1,4 +1,4 @@
-"""Parity tests: TPU-native ops vs the NumPy transcription of the C++ math.
+"""Parity tests: the JAX ops vs the NumPy transcription of the C++ math.
 
 These are the 1e-4 relative-pose agreement tests demanded by BASELINE.md.
 """

@@ -77,7 +77,7 @@ class TestFpfhParity:
 
 
 class TestBallCapDetection:
-    """VERDICT item 10: a ball denser than the kNN cap is DETECTED, and the
+    """A ball denser than the kNN cap is DETECTED, and the
     auto-sized cap restores exact radiusSearch parity (fpfh.cpp:133-147)."""
 
     def _dense_cloud(self, n_dense=100, n_far=20, seed=7):

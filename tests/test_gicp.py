@@ -235,7 +235,7 @@ class TestGicpAlignment:
 
 
 class TestAutodiffWhitening:
-    """VERDICT r2 #6: differentiate THROUGH the whitening (like Ceres's Jet
+    """Differentiate THROUGH the whitening (like Ceres's Jet
     evaluation of gicp_cost.hpp:57-68) and quantify the step-direction
     difference vs the fixed-W scheme on anisotropic covariances."""
 

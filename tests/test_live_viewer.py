@@ -1,4 +1,4 @@
-"""Live viewer service tests (VERDICT r2 #7): the RsViewer Loop analog
+"""Live viewer service tests: the RsViewer Loop analog
 (rs_viewer.cpp:67-117) -- stale-frame interval/8 pacing, HTTP live view,
 atomic latest-frame file, record-while-viewing."""
 
@@ -165,7 +165,7 @@ class TestViewerCliLoop:
 
 
 class TestOrbitViewer:
-    """Interactive 3-D view (VERDICT r3 missing #2): /orbit page +
+    """Interactive 3-D view: /orbit page +
     /cloud.bin binary snapshots (vis/live.py pack_cloud)."""
 
     def test_pack_cloud_layout_roundtrip(self):

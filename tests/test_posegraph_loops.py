@@ -89,7 +89,7 @@ class TestPoseGraph:
         assert err_rob < 0.5 * err_ls
 
     def test_1000_node_graph_preconditioned_convergence(self):
-        """Scale test (VERDICT r2 #8): 5 laps x 200 nodes with ~5% exact
+        """Scale test: 5 laps x 200 nodes with ~5% exact
         loop edges and drifty odometry. Backbone-factorized PCG at the
         standard 60-iteration budget must match an unpreconditioned LONG-CG
         reference and clearly beat unpreconditioned CG at the same budget
@@ -301,7 +301,7 @@ class TestLoopClosureDetection:
         assert err.max() < 2e-2
 
     def test_200_keyframes_device_store_batched_verify(self):
-        """VERDICT r2 #5: device-resident descriptor/cloud store at ~200
+        """Device-resident descriptor/cloud store at ~200
         keyframes (exercising capacity doubling), query still exact, and
         verify_batch resolves ALL candidates of a query in one vmapped
         dispatch with results identical to one-at-a-time verification."""

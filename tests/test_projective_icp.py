@@ -223,7 +223,7 @@ class TestSampledSourceFastPath:
 
 
 class TestFitLevels:
-    """Resolution-aware schedule (VERDICT r3 #3): fit_levels drops coarse
+    """Resolution-aware schedule: fit_levels drops coarse
     pyramid levels whose smaller dimension would fall below ~24 px."""
 
     def test_vga_default_unchanged(self):

@@ -231,7 +231,7 @@ class TestGncIterationBudget:
     def test_64_rounds_converged_at_max_noise_bound(self):
         """TEASER stops on rotation_cost_threshold=1e-6 within <=2048 GNC
         rounds (teaser_interface.cpp:84-91); this repo uses a FIXED 64
-        rounds (the TPU shape). Verify sufficiency at the largest
+        rounds (a fixed-shape loop). Verify sufficiency at the largest
         noise_bound in use (0.25, the register_robust default, annealing
         factor 1.4): doubling the budget to 128 must not move the answer,
         i.e. the mu schedule has saturated well before round 64."""
@@ -262,8 +262,8 @@ class TestAdaptiveGncTermination:
     """TEASER's rotation_cost_threshold early stop (teaser_interface.cpp:
     84-91) replaces the round-3 fixed 64-round scan. Rounds-to-converge
     grow with log(r2_max / cbar2): a tight noise bound under far
-    outliers needs MORE than 64 rounds (this is the VERDICT-r3 'sweep
-    noise_bound' item, resolved by making termination adaptive)."""
+    outliers needs MORE than 64 rounds (resolved by making termination
+    adaptive)."""
 
     def _tims(self, seed=7, m=384, scene_scale=30.0, noise=0.003,
               outlier_frac=0.3, outlier_mag=80.0):
@@ -290,7 +290,7 @@ class TestAdaptiveGncTermination:
         # ~ log(10/mu0)/log(1.4) > 80 rounds -- a fixed 64-round budget
         # (the old scan, reproduced via max_iters=64 with the early stop
         # disabled) exits ~5e-4 rad short of convergence (measured sweep
-        # 2026-08-19; see BENCHMARKS.md "GNC adaptive termination").
+        # 2026-08-19).
         a, b, mask, R_true = self._tims(noise=3e-4, outlier_mag=300.0)
         R64, _ = robust_global._gnc_tls_rotation(a, b, mask, 1e-3,
                                                  max_iters=64,

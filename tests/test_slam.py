@@ -62,7 +62,7 @@ class TestSlam:
         assert tracker.num_loop_closures >= 1
 
     def test_verifier_rejects_wrong_loops_without_odometry_gate(self):
-        """VERDICT item 8: self-similar sphere scenes produce confidently
+        """Self-similar sphere scenes produce confidently
         wrong global registrations; the verifier's symmetric-overlap check
         must reject them BY ITSELF (odometry gate disabled), while keeping
         the true revisit edges."""

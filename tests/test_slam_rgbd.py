@@ -2,7 +2,7 @@
 
 The depth-only VO's known failure mode is geometry-degenerate motion
 (flat wall: point-to-plane leaves in-plane translation unobservable --
-the "seed-11 sliding ambiguity" recorded in BENCHMARKS.md). These tests
+the "seed-11 sliding ambiguity" of the synthetic scene). These tests
 check that SlamConfig.use_rgb swaps in the RGB-D keyframe tracker and
 that it tracks where the depth-only VO demonstrably slides.
 """

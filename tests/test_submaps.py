@@ -552,8 +552,8 @@ class TestAtlasScaling:
 
 class TestAutoSlab:
     """SubmapConfig.auto_slab: submap volumes default integrate_slab to
-    3V/4 (bounded local scenes are the slab's regime; BENCHMARKS round-5
-    corridor isolation measured the win with bit-identical ATE)."""
+    3V/4 (bounded local scenes are the slab's regime, and the slab fuses
+    the same volume)."""
 
     def test_defaults_on(self):
         tr = SubmapTsdfTracker(INTR, SubmapConfig(volume=VOL), icp=ICP)

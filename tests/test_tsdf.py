@@ -667,12 +667,12 @@ class TestPhotometricKinectFusion:
 
 
 class TestSmallResolutionSchedule:
-    """Regression for the round-3 pitfall (BENCHMARKS.md): the DEFAULT
+    """Regression for a small-resolution pitfall: the DEFAULT
     4-level ICP schedule at 80x60 built a 10x7 coarsest level that,
     combined with a partial-coverage model render (volume smaller than
     the scene), diverged. fit_levels (align/projective.py) now truncates
     the schedule automatically; tiny-smoke dense configs must work on
-    DEFAULT settings without hand-sized volumes (VERDICT r3 #3)."""
+    DEFAULT settings without hand-sized volumes."""
 
     def test_tsdf_tracker_default_icp_tracks_partial_coverage(self):
         from realsensetracker_tpu.tracking.tsdf_tracker import TsdfTracker

@@ -1,7 +1,7 @@
 """Integrate decimation (TsdfConfig.integrate_every).
 
 The full-resolution integrate pass is the dense tracked step's cost
-floor once the render is reduced (BENCHMARKS.md track_scale table);
+floor once the render is reduced (TsdfConfig.track_scale);
 fusing every Nth tracked frame divides it by N -- the standard
 KinectFusion economy. Pose estimation still runs every frame; the fused
 map is a strict cadence-subsample of the N=1 map.

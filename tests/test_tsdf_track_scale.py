@@ -1,8 +1,7 @@
 """Reduced-resolution frame-to-model tracking (TsdfConfig.track_scale).
 
 track_scale=s renders the model and runs the ICP at (H/s, W/s) -- the
-raycast gather bill, the tracked step's dominant cost on-chip
-(BENCHMARKS.md "Raycast phase split"), drops ~s^2-fold -- while the
+raycast gather bill, the tracked step's dominant cost, drops ~s^2-fold -- while the
 FULL-resolution frame still integrates, so the fused map is unchanged.
 """
 

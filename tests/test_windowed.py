@@ -347,8 +347,8 @@ class TestMultiEventWindow:
     """Non-truncating windows (truncate_at_events=False): keyframe events
     promote entirely in-scan, so a window never re-submits its tail --
     exactly ceil(N/W) dispatches -- while staying per-frame-identical
-    (BENCHMARKS.md "windowed paradox": truncation wasted ~27% of scan
-    rows at W=4 with events every ~6 frames)."""
+    (truncation wasted ~27% of scan rows at W=4 with events every ~6
+    frames)."""
 
     def _run_multi_event(self, tracker, depths, window, pad=True):
         out = []
